@@ -21,11 +21,6 @@ os.environ["XLA_FLAGS"] = (
     + " --xla_force_host_platform_device_count=4").strip()
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -76,13 +71,11 @@ index, container = wl["make_index"]()
 sh = ShardedIVF(mesh, index, container, process_local=True)
 D, I = sh.search(wl["xq"], k=5, nprobe=4)
 
-# ---- roc_pl: the prepared Pallas translate built PROCESS-LOCALLY ---------
-# (interpret mode; 2048 lists = 256 lanes per shard so the kernel gate
-# passes — each process materializes only its rows' lane buffers)
-os.environ["VDBIDC_PALLAS_INTERPRET"] = "1"
+# ---- roc_pl: the kernel translate built PROCESS-LOCALLY -------------------
+# (interpret mode — each process materializes only its rows' lane buffers)
 index2, cont2, xq2 = wl["make_index_pl"]()
-sh2 = ShardedIVF(mesh, index2, cont2, process_local=True)
-assert sh2._pallas is not None, "roc_pl must engage cross-process"
+sh2 = ShardedIVF(mesh, index2, cont2, process_local=True, interpret=True)
+assert sh2._kernel is not None, "roc_pl must engage cross-process"
 D2, I2 = sh2.search(xq2, k=5, nprobe=4)
 
 np.savez(

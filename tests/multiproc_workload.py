@@ -34,9 +34,9 @@ def build_workload():
         return index, container
 
     def make_index_pl():
-        """2048 lists (256/shard on an 8-device mesh) so the roc_pl
-        prepared Pallas translate engages under VDBIDC_PALLAS_INTERPRET —
-        each process builds kernel lane buffers for ITS rows only."""
+        """200 lists (25/shard on an 8-device mesh: the kernel wrapper pads
+        the lanes) for the roc_pl kernel translate in interpret mode — each
+        process builds kernel lane buffers for ITS rows only."""
         from vector_db_id_compression_tpu.search.ivf import IndexIVF
         from vector_db_id_compression_tpu.store.invlists import (
             RocInvertedLists,
@@ -46,7 +46,7 @@ def build_workload():
         xb2 = r2.standard_normal((6000, d)).astype(np.float32)
         xq2 = xb2[r2.integers(0, len(xb2), 12)] + 0.01 * r2.standard_normal(
             (12, d)).astype(np.float32)
-        index = IndexIVF(d, 2048)
+        index = IndexIVF(d, 200)
         index.train(xb2[:4000], niter=3)
         index.add(xb2)
         return index, RocInvertedLists(index.invlists), xq2

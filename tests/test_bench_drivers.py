@@ -104,14 +104,14 @@ def test_hnsw_bench(tiny, tmp_path):
 
 
 def test_codec_scale_driver(capsys):
-    """codec_scale runs end-to-end at tiny scale on CPU (interpret-mode
-    Pallas) and reports a correct round-trip + sane JSON row."""
+    """codec_scale runs end-to-end at tiny scale on the CPU (decode kernel
+    in interpret mode) and reports a correct round-trip + sane JSON row."""
     import json
 
     from vector_db_id_compression_tpu.bench.codec_scale import main as scale
 
     scale(["--ntotal", "3000", "--nlist", "16", "--runs", "1",
-           "--skip-device-encode"])
+           "--interpret"])
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["ntotal"] == 3000 and row["nlist"] == 16
     # ~log2(ntotal) - log2(n/nlist!)/n + state overhead; sane band
@@ -129,7 +129,7 @@ def test_codec_scale_interleave_routing(capsys):
 
     scale(["--ntotal", "3000", "--nlist", "4", "--runs", "1",
            "--chunk-target", "128", "--lane-chunk", "8",
-           "--skip-device-encode"])
+           "--interpret"])
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["lanes"] > 4 and row["lane_n_max"] <= 2 * 128
     assert row["decode_mids_s"] > 0

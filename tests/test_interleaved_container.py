@@ -101,8 +101,8 @@ def test_search_equality_vs_plain_roc():
 
 def test_prepared_interleaved_translate_interpret():
     """Single-kernel interleaved decode_select (chunk-lane mapping in
-    closed form) must equal the grouped fallback — interpret mode covers
-    the TPU program on CPU."""
+    closed form) must equal the grouped per-bucket path — interpret mode
+    covers the GPU kernel's program on the CPU."""
     import numpy as np
 
     from vector_db_id_compression_tpu.store import invlists as inv_mod
@@ -135,7 +135,7 @@ def test_prepared_interleaved_translate_interpret():
     offs = np.array(offs, np.int64)
 
     expect = inv_mod.CompressedInvertedLists.decode_select(comp, lns, offs)
-    prep = inv_mod._prepared_interleaved_translate(comp, interpret=True)
+    prep = inv_mod._prepared_translate(comp, interpret=True)
     assert prep is not None
-    got = comp.decode_select(lns, offs)
+    got = inv_mod._translate_prepared(prep, lns, offs)
     np.testing.assert_array_equal(got, expect)

@@ -130,9 +130,9 @@ def test_empty_lists_handled():
 
 
 def test_prepared_container_translate_interpret():
-    """The whole-container Pallas translate (single-kernel decode_select)
-    must match the per-bucket chain exactly — exercised here through the
-    interpret path so CPU CI covers the TPU fast path's program."""
+    """The whole-container kernel translate (single-kernel decode_select)
+    must match the per-bucket chain exactly — run through interpret mode so
+    the CPU tests cover the GPU kernel's program."""
     from vector_db_id_compression_tpu.store import invlists as inv_mod
 
     rng = np.random.default_rng(11)
@@ -153,11 +153,14 @@ def test_prepared_container_translate_interpret():
     offs = np.array(offs, np.int64)
 
     expect = inv_mod.CompressedInvertedLists.decode_select(comp, lns, offs)
-    prep = inv_mod._prepared_container_translate(comp, interpret=True)
+    prep = inv_mod._prepared_translate(comp, interpret=True)
     assert prep is not None, "interpret-mode prep must build on CPU"
-    got = comp.decode_select(lns, offs)
+    got = inv_mod._translate_prepared(prep, lns, offs)
     np.testing.assert_array_equal(got, expect)
+    # the CPU route of decode_select is the per-bucket XLA chain
+    assert inv_mod._prepared_translate(comp) is None
+    np.testing.assert_array_equal(comp.decode_select(lns, offs), expect)
 
-    # empty query and out-of-length offsets are safe
-    assert len(comp.decode_select(np.zeros(0, np.int64),
-                                  np.zeros(0, np.int64))) == 0
+    # empty query is safe
+    assert len(inv_mod._translate_prepared(
+        prep, np.zeros(0, np.int64), np.zeros(0, np.int64))) == 0

@@ -105,18 +105,12 @@ def test_two_process_artifact_and_search_equal_single(tmp_path):
     np.testing.assert_allclose(z0["D"], D, rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(z0["D"], z1["D"], rtol=0, atol=0)
 
-    # roc_pl (prepared Pallas translate, process-local lane buffers,
-    # interpret mode): both processes agree with the single-process run
-    import os as _os
-
-    _os.environ["VDBIDC_PALLAS_INTERPRET"] = "1"
-    try:
-        index2, cont2, xq2 = wl["make_index_pl"]()
-        sh2 = ShardedIVF(mesh, index2, cont2, process_local=True)
-        assert sh2._pallas is not None
-        D2, I2 = sh2.search(xq2, k=5, nprobe=4)
-    finally:
-        _os.environ.pop("VDBIDC_PALLAS_INTERPRET", None)
+    # roc_pl (kernel translate, process-local lane buffers, interpret
+    # mode): both processes agree with the single-process run
+    index2, cont2, xq2 = wl["make_index_pl"]()
+    sh2 = ShardedIVF(mesh, index2, cont2, process_local=True, interpret=True)
+    assert sh2._kernel is not None
+    D2, I2 = sh2.search(xq2, k=5, nprobe=4)
     np.testing.assert_array_equal(z0["I2"], z1["I2"])
     np.testing.assert_array_equal(z0["I2"], I2)
     np.testing.assert_allclose(z0["D2"], D2, rtol=1e-6, atol=1e-6)

@@ -252,19 +252,18 @@ def test_sharded_search_device_count_invariant(ivf_setup):
     np.testing.assert_allclose(D1, D8, rtol=1e-6)
 
 
-def test_roc_pallas_translate_interpret_process_local(monkeypatch):
-    """The fused roc_pl translate (single-kernel Pallas decode of every
-    local lane) exercised on CPU via VDBIDC_PALLAS_INTERPRET=1, on a
-    2-device mesh with 256 lanes per shard — the process-local construction
+def test_roc_pallas_translate_interpret_process_local():
+    """The fused roc_pl translate (one decode-kernel call over every local
+    lane) in interpret mode, on a 2-device mesh with 50 lanes per shard —
+    the kernel wrapper pads them — through the process-local construction
     path with mesh-sharded kernel buffers. Results must equal the host
     container search exactly."""
     from vector_db_id_compression_tpu.parallel.search import ShardedIVF
     from vector_db_id_compression_tpu.search.ivf import IndexIVF
     from vector_db_id_compression_tpu.store.invlists import RocInvertedLists
 
-    monkeypatch.setenv("VDBIDC_PALLAS_INTERPRET", "1")
     rng = np.random.default_rng(17)
-    d, nlist, nb, nq = 8, 512, 2600, 16
+    d, nlist, nb, nq = 8, 100, 2600, 16
     xb = rng.normal(size=(nb, d)).astype(np.float32)
     xq = rng.normal(size=(nq, d)).astype(np.float32)
     index = IndexIVF(d, nlist, storage="flat", nprobe=4)
@@ -275,9 +274,9 @@ def test_roc_pallas_translate_interpret_process_local(monkeypatch):
     D_ref, I_ref = index.search_defer_id_decoding(
         xq, 5, nprobe=4, decode_1by1=False)
 
-    sh = ShardedIVF(make_lists_mesh(2), index, container)
-    assert sh._pallas is not None, "interpret-mode roc_pl must engage"
-    assert sh.b_loc == 256
+    sh = ShardedIVF(make_lists_mesh(2), index, container, interpret=True)
+    assert sh._kernel is not None, "interpret-mode roc_pl must engage"
+    assert sh.b_loc == 50
     D, I = sh.search(xq, 5, nprobe=4)
     np.testing.assert_array_equal(I, I_ref)
     np.testing.assert_allclose(D, D_ref, rtol=1e-5, atol=1e-5)

@@ -1,13 +1,16 @@
-"""Pallas ROC decode kernel (interpret mode on CPU): bit-exact vs the XLA
-scan decoder, hence vs the C++ reference."""
+"""ROC decode kernel (ops/roc_pallas.py) in Pallas interpret mode on the
+CPU: bit-exact vs the XLA scan decoder, hence vs the C++ reference. The
+same kernel compiled for the card is checked by the ``gpu`` test below and
+by chip_smoke.py."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-
 from vector_db_id_compression_tpu.codecs import roc_device as rd
 from vector_db_id_compression_tpu.codecs.roc import precision_for_max_id_safe
+from vector_db_id_compression_tpu.ops import roc_pallas as rp
 from vector_db_id_compression_tpu.ops.roc_pallas import roc_decode_pallas
 
 
@@ -31,6 +34,14 @@ def _encode_batch(rng, sizes, bits):
     return ids, lengths, prec, states, pool, n_max, maxp
 
 
+def _xla_decode(states, lengths, prec, pool, n_max, maxp):
+    ids, _ = rd.roc_decode_batch(
+        states, jnp.asarray(lengths), jnp.asarray(prec), pool, n_max,
+        rd.n_slices_for(maxp),
+    )
+    return np.asarray(ids)
+
+
 @pytest.mark.parametrize(
     "sizes,bits",
     [([64], 16), ([1, 5, 128, 37], 16), ([513, 2, 300], 20), ([1000] * 3, 24)],
@@ -38,12 +49,7 @@ def _encode_batch(rng, sizes, bits):
 def test_pallas_decode_bit_exact(sizes, bits):
     rng = np.random.default_rng(sum(sizes) + bits)
     ids, lengths, prec, states, pool, n_max, maxp = _encode_batch(rng, sizes, bits)
-
-    ref_ids, _ = rd.roc_decode_batch(
-        states, jnp.asarray(lengths), jnp.asarray(prec), pool, n_max,
-        rd.n_slices_for(maxp),
-    )
-    ref_ids = np.asarray(ref_ids)
+    ref_ids = _xla_decode(states, lengths, prec, pool, n_max, maxp)
 
     got, ok = roc_decode_pallas(
         states, lengths, prec, pool, n_max, interpret=True
@@ -53,36 +59,30 @@ def test_pallas_decode_bit_exact(sizes, bits):
 
 
 def test_pallas_decode_emit_rev_matches():
-    """emit_rev=True returns each lane reversed (row length-1-j holds
-    element j) — the layout the fused translate stage gathers from."""
-    from vector_db_id_compression_tpu.ops.roc_pallas import RocPallasDecoder
-    from vector_db_id_compression_tpu.ops import roc_pallas as rp
-
+    """The kernel's raw output is in decode-iteration order: element j of
+    lane b sits at emit row length-1-j — the layout the fused translate
+    stages gather from — and the wrapper pads 4 lanes to a full block."""
     rng = np.random.default_rng(7)
     sizes, bits = [700, 3, 513, 64], 20
     ids, lengths, prec, states, pool, n_max, maxp = _encode_batch(
         rng, sizes, bits)
-    dec = RocPallasDecoder(states, lengths, prec, pool, n_max)
+    dec = rp.RocPallasDecoder(states, lengths, prec, pool, n_max)
     fwd, ok = dec.decode(interpret=True)
     assert ok
-    rev, err = rp._run_decode(
-        dec._buf, dec._hi, dec._lo, dec._ptr0, dec._lens, dec._prec_row,
-        dec._n_max_pad, dec._capp, True, dec._pool_ok, True)
+    emit, err = rp.run_kernel(dec.buf, dec.head, dec.ptr, dec.lens,
+                              dec.prec, n_max=n_max, interpret=True)
     assert not bool(err)
-    rev = np.asarray(rev)[: len(sizes)]
+    emit = np.asarray(emit)
+    assert emit.shape == (1, n_max, len(sizes))
     fwd = np.asarray(fwd)
     for b, n in enumerate(sizes):
-        np.testing.assert_array_equal(rev[b, :n][::-1], fwd[b, :n])
-        assert (rev[b, n:] == 0).all()
+        np.testing.assert_array_equal(emit[0, :n, b][::-1], fwd[b, :n])
+        assert (fwd[b, n:] == 0).all()
 
 
 def test_pallas_chained_decode_bit_exact():
-    """RocChainedPallasDecoder matches the XLA chained decoder on the
+    """Chained slots (2-D lengths) match the XLA chained decoder on the
     RocBlockGraph format (S multisets threaded through one state)."""
-    from vector_db_id_compression_tpu.ops.roc_pallas import (
-        RocChainedPallasDecoder,
-    )
-
     rng = np.random.default_rng(11)
     L, S, K, bits = 5, 4, 16, 18
     ids = np.zeros((L, S, K), dtype=np.uint64)
@@ -111,16 +111,35 @@ def test_pallas_chained_decode_bit_exact():
         states, jnp.asarray(degs), jnp.asarray(prec), pool, K, n_sl)
     ref = np.asarray(ref)
 
-    dec = RocChainedPallasDecoder(states, degs, prec, pool, K)
+    dec = rp.RocPallasDecoder(states, degs, prec, pool, K)
     got, ok = dec.decode(interpret=True)
     assert ok
     np.testing.assert_array_equal(np.asarray(got).astype(np.uint64), ref)
 
-    # traced subset entry (the in-traversal fetch path)
-    import jax
-
-    idx = np.array([3, 3, 0, 4] + [0] * 124, dtype=np.int32)  # pad to 128
-    sub = jax.jit(lambda i: dec.decode_lanes_traced(i, interpret=True))(
+    # traced subset entry (the in-traversal fetch path), repeats included
+    idx = np.array([3, 3, 0, 4], dtype=np.int32)
+    sub = jax.jit(lambda i: dec.decode_lanes(i, interpret=True))(
         jnp.asarray(idx))
-    np.testing.assert_array_equal(
-        np.asarray(sub)[:4].astype(np.uint64), ref[idx[:4]])
+    np.testing.assert_array_equal(np.asarray(sub).astype(np.uint64), ref[idx])
+
+
+@pytest.mark.parametrize("n_lanes,expect", [(64, 8), (1024, 8), (8692, 32),
+                                            (4224, 16), (20000, 64)])
+def test_lanes_per_program(n_lanes, expect):
+    """Few lanes -> narrow blocks so the programs still cover the SMs."""
+    assert rp.lanes_per_program(n_lanes) == expect
+
+
+@pytest.mark.gpu
+def test_kernel_on_gpu_matches_xla(gpu_device):
+    """The kernel compiled for the card (no interpret mode) is bit-exact
+    with the XLA scan decoder."""
+    rng = np.random.default_rng(5)
+    sizes, bits = [900, 17, 256, 1], 22
+    with jax.default_device(gpu_device):
+        ids, lengths, prec, states, pool, n_max, maxp = _encode_batch(
+            rng, sizes, bits)
+        ref_ids = _xla_decode(states, lengths, prec, pool, n_max, maxp)
+        got, ok = roc_decode_pallas(states, lengths, prec, pool, n_max)
+    assert ok
+    np.testing.assert_array_equal(got, ref_ids)

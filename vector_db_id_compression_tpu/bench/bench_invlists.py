@@ -55,41 +55,17 @@ def build_index(ds, index_str: str, niter: int = 20) -> IndexIVF:
     return index
 
 
-def _fused_times(sh, xq, k: int, nprobe: int, pipeline: int = 8):
-    """(one_shot_s, sustained_s) of the fused single-dispatch search
-    (parallel.search.ShardedIVF on a 1-device mesh): one-shot includes the
-    dispatch round trip; sustained is the marginal time of ``pipeline``
-    async back-to-back dispatches (the queue hides the per-call round trip
-    — same methodology as bench.py's codec headline)."""
-    import time as _t
-
-    import jax.numpy as jnp
-
+def _fused_time(sh, xq, k: int, nprobe: int, runs: int = 5) -> float:
+    """Median seconds of the fused single-dispatch search
+    (parallel.search.ShardedIVF on a 1-device mesh); each run ends with the
+    result on the host, which waits for the device."""
     sh.search(xq, k, nprobe)  # compile + warm (may chunk queries)
-    one = float("inf")
-    for _ in range(3):
-        t0 = _t.time()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
         sh.search(xq, k, nprobe)
-        one = min(one, _t.time() - t0)
-    # sustained: pipeline the (single-chunk) program; when the search is
-    # query-chunked, pipeline one chunk and scale by the chunk count
-    nq_c, k_, np_ = next(kk for kk in sh._compiled
-                         if kk[1] == k and kk[2] == nprobe)
-    jitted = sh._compiled[(nq_c, k_, np_)]
-    xq_dev = jnp.asarray(np.asarray(xq[:nq_c], np.float32))
-    if len(xq_dev) < nq_c:
-        xq_dev = jnp.pad(xq_dev, ((0, nq_c - len(xq_dev)), (0, 0)))
-    t0 = _t.time()
-    _, I1 = jitted(xq_dev)
-    np.asarray(I1)
-    t1 = _t.time() - t0
-    t0 = _t.time()
-    outs = [jitted(xq_dev) for _ in range(pipeline)]
-    np.asarray(outs[-1][1])
-    tK = _t.time() - t0
-    n_chunks = -(-len(xq) // nq_c)
-    sustained = max((tK - t1) / (pipeline - 1), 1e-9) * n_chunks
-    return one, sustained
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
 
 
 def run_bench(ds, index_str: str, runs: int = 100, k: int = 20,
@@ -157,12 +133,9 @@ def run_bench(ds, index_str: str, runs: int = 100, k: int = 20,
                 dataset=str(ds), index=index_str, runs=runs,
             )
             if m in fused_sh:
-                one, sus = _fused_times(fused_sh[m], xq, k, nprobe)
-                row["dt_fused"] = one
-                row["dt_fused_sustained"] = sus
+                row["dt_fused"] = _fused_time(fused_sh[m], xq, k, nprobe)
             rows.append(row)
-            extra = (f" fused={row['dt_fused']*1e3:7.2f}ms "
-                     f"sustained={row['dt_fused_sustained']*1e3:7.2f}ms"
+            extra = (f" fused={row['dt_fused']*1e3:7.2f}ms"
                      if m in fused_sh else "")
             print(f"  {m:15s} nprobe={nprobe:3d} "
                   f"dt={row['dt_search']*1e3:8.2f}ms "
@@ -198,7 +171,7 @@ def main(argv=None):
     p.add_argument("--out", default="bench_invlists_out.csv")
     p.add_argument("--fused", action="store_true",
                    help="also time the fused single-dispatch search "
-                        "(parallel.search) with pipelined sustained timing")
+                        "(parallel.search)")
     a = p.parse_args(argv)
 
     from .datasets import get_dataset

@@ -44,7 +44,8 @@ def knn_l2(xq: np.ndarray, xb: np.ndarray, k: int, block: int = 4096,
     def topk_block(q, xb_slab):
         b2 = jnp.sum(xb_slab * xb_slab, axis=1)
         d2 = b2[None, :] - 2.0 * jnp.dot(q, xb_slab.T,
-                                         preferred_element_type=jnp.float32)
+                                         preferred_element_type=jnp.float32,
+                                         precision=jax.lax.Precision.HIGHEST)
         kk = min(k, xb_slab.shape[0])
         neg, idx = jax.lax.top_k(-d2, kk)
         return -neg, idx

@@ -40,42 +40,13 @@ METHOD_MAP = {
 METHODS = ["ref", "compact", "elias-fano", "roc", "roc-block"]
 
 
-def _sustained_device(g, xb, xq, k, medoid, pipeline: int = 8):
-    """Marginal time of ``pipeline`` async back-to-back device traversals
-    (single dispatch each): the queue hides the per-call round trip, so
-    method deltas rise above the dispatch floor that dominates one-shot
-    timings on remote-TPU rigs (NOTES.md)."""
-    import jax.numpy as jnp
-
-    from ..search import graph_device as gd
-
-    xq32 = np.asarray(xq, np.float32)
-    L = 2 * k
-    max_iters = 4 * L + 32
-    tree, fetch, K = gd.provider_for(g)
-    entries = jnp.asarray(np.broadcast_to(np.asarray(medoid, np.int32),
-                                          (len(xq32),)))
-    xb_dev = jnp.asarray(np.asarray(xb, np.float32))
-    xq_dev = jnp.asarray(xq32)
-    args = (fetch, tree, xb_dev, xq_dev, K, k, L, max_iters, entries)
-    np.asarray(gd._search(*args)[1])  # warm (compiled by the timed runs)
-    t0 = time.time()
-    np.asarray(gd._search(*args)[1])
-    t1 = time.time() - t0
-    t0 = time.time()
-    outs = [gd._search(*args) for _ in range(pipeline)]
-    np.asarray(outs[-1][1])
-    tK = time.time() - t0
-    return max((tK - t1) / (pipeline - 1), 1e-9)
-
-
 def run_bench(ds, max_degree: int, runs: int = 100, k: int = 10,
               methods: List[str] = METHODS,
               out_csv: str = "graph_dynamic_bench_out.csv",
               host_search: bool = False):
     """``host_search`` switches back to the per-hop host loop; the default is
-    the fully-jitted device traversal (identical results — tests/
-    test_graph_device.py — and ~100x faster on a remote TPU)."""
+    the fully-jitted device traversal (identical results —
+    tests/test_graph_device.py)."""
     xb = ds.get_database()
     xq = ds.get_queries()
     gt = ds.get_groundtruth(k)
@@ -110,16 +81,13 @@ def run_bench(ds, max_degree: int, runs: int = 100, k: int = 10,
         times = []
         I = None
         for _ in range(runs):
-            t0 = time.time()
+            t0 = time.perf_counter()
             I = search()
-            times.append(time.time() - t0)
-        sustained = (np.nan if host_search
-                     else _sustained_device(g, xb, xq, k, medoid))
+            times.append(time.perf_counter() - t0)
         recall = float((I[:, :1] == gt[:, :1]).sum()) / len(xq)
         row = dict(
             method=m, max_degree=max_degree, k=k, nq=len(xq),
             dt_search=float(np.median(times)),
-            dt_search_sustained=float(sustained),
             ids_size=int(ids_size), overhead_size=int(overhead),
             bits_per_edge=8.0 * ids_size / max(num_edges, 1),
             recall_1=recall, build_time=build_time,
@@ -127,7 +95,6 @@ def run_bench(ds, max_degree: int, runs: int = 100, k: int = 10,
         )
         rows.append(row)
         print(f"  {m:12s} dt={row['dt_search']*1e3:8.2f}ms "
-              f"sustained={sustained*1e3:8.2f}ms "
               f"bits/edge={row['bits_per_edge']:6.2f} R@1={recall:.3f}",
               flush=True)
         with open(out_csv, "w", newline="") as f:

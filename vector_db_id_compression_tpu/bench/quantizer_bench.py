@@ -1,22 +1,22 @@
-"""Coarse-quantizer study at large nlist: flat MXU matmul vs HNSW graph.
+"""Coarse-quantizer study at large nlist: flat matmul vs HNSW graph.
 
 The reference's 1B operating point quantizes 1M centroids through an HNSW
 (--quantizer_efSearch 64, /root/reference/README.md:174-176) because CPU
 brute force over 1M centroids is prohibitive. This bench measures the same
-trade ON TPU for ``--nlist`` centroids: per-1000-query coarse time for
+trade on the device for ``--nlist`` centroids: per-1000-query coarse time for
 
-  - flat: one [nq, d] x [d, nlist] MXU matmul + top-nprobe,
+  - flat: one [nq, d] x [d, nlist] matmul + top-nprobe,
   - hnsw: the graph quantizer (IndexIVF quantizer='hnsw') at several
     efSearch values,
 
 plus the probe-set overlap of hnsw vs the exact flat coarse (the recall
 proxy: overlapping probe sets => identical downstream candidates). Writes
 one JSON with build time, per-path timings, and overlaps — whatever the
-numbers say; on MXU-class hardware brute force stays competitive far past
-the CPU crossover, and the JSON records the measured reality.
+numbers say: on matmul-heavy accelerators brute force may stay competitive
+far past the CPU crossover, and the JSON records the measured reality.
 
     python -m vector_db_id_compression_tpu.bench.quantizer_bench \
-        --nlist 262144 --out results/quantizer_262k_tpu.json
+        --nlist 262144 --out results/quantizer_262k.json
 """
 
 from __future__ import annotations
@@ -45,11 +45,11 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=3)
     p.add_argument("--skip-hnsw", action="store_true",
                    help="flat-matmul point only (the 1M-centroid study: "
-                        "a graph build at that scale costs hours on this "
-                        "1-core host and the measured question is whether "
-                        "the MXU matmul stays cheap — reference 1B config "
+                        "a graph build at that scale costs hours on one "
+                        "core and the measured question is whether "
+                        "the matmul stays cheap — reference 1B config "
                         "README.md:174-176)")
-    p.add_argument("--out", default="results/quantizer_262k_tpu.json")
+    p.add_argument("--out", default="results/quantizer_262k.json")
     args = p.parse_args(argv)
 
     import jax

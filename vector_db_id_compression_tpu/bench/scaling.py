@@ -16,8 +16,8 @@ takes for its share,
 
 reported for sharded ROC encode and decode (parallel.mesh), plus a
 device-count-invariance assert on the N-device artifact (the §2.4
-determinism contract). On a real TPU pod the mesh rides ICI and each shard
-is a physically separate chip; in this environment the mesh is the virtual
+determinism contract). On GPUs each shard is a separate card and the
+collectives go to NCCL; run under JAX_PLATFORMS=cpu, the mesh is the virtual
 N-device CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count), whose
 "devices" share one socket's cores and thread pool — measured efficiencies
 are a LOWER bound on separate-chip hardware (shards contend for the same

@@ -17,7 +17,7 @@ PARITY across containers (IDs are lossless) plus the redo-averaged
 t_search.
 
     python -m vector_db_id_compression_tpu.bench.search_100m \
-        --ntotal 100000000 --nlist 65536 --out results/search_100m_tpu.json
+        --ntotal 100000000 --nlist 65536 --out results/search_100m.json
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=7)
     p.add_argument("--methods", nargs="+",
                    default=["none", "roc", "elias-fano"])
-    p.add_argument("--out", default="results/search_100m_tpu.json")
+    p.add_argument("--out", default="results/search_100m.json")
     args = p.parse_args(argv)
 
     # byte-path scan: the decoded-f32 payload would not fit HBM at 100M

@@ -1,13 +1,11 @@
 """Wavelet-tree translate decomposition at the Table-4 shape.
 
-The 10M-65k QINCo sweep (results/search_ivf_qinco_synthetic10m_65k_*) put
-wavelet-tree at ~3.1x the uncompressed search time; the extra cost over
-``none`` is entirely the nshort-per-query 1-by-1 select translate (the
-reference pays the same per-result wt.select at
-custom_invlists_impl.cpp:377-379). This driver isolates that translate at
-the exact Table-4 shape — Q = nq x nshort select queries against a
-wavelet tree over ``--ntotal`` ids in ``--nlist`` lists — and decomposes
-it into:
+With a wavelet-tree container, the cost of a deferred search over ``none``
+is the nshort-per-query 1-by-1 select translate (the reference pays the same
+per-result wt.select at custom_invlists_impl.cpp:377-379). This driver
+isolates that translate at the exact Table-4 shape — Q = nq x nshort select
+queries against a wavelet tree over ``--ntotal`` ids in ``--nlist`` lists —
+and decomposes it into:
 
   - ``select_chip_ms``: the jitted select walk alone, output reduced to a
     scalar on device (pure kernel cost, no transfer);
@@ -20,7 +18,7 @@ so e2e ≈ floor + chip identifies dispatch/transfer-bound vs walk-bound.
 
     python -m vector_db_id_compression_tpu.bench.wt_translate_bench \
         --ntotal 10000000 --nlist 65536 --wt-type 0 \
-        --out results/wt_translate_10m65k_tpu.json
+        --out results/wt_translate_10m65k.json
 """
 
 from __future__ import annotations

@@ -14,8 +14,8 @@ Parameter-compatible with the reference's modified succinct elias_fano
 Host (`ef_encode_lists`): fully vectorized numpy build — Elias-Fano encoding
 has no sequential dependency, so unlike ROC it needs no scan at all.
 Device (`EliasFanoBatch`): packed words + sampled superblock select directory
-per lane (core.bits, one i32 per 512 bits — darray-class overhead, the TPU
-shape of elias_fano.hpp:141-145's darray1). The full-list sweep (`ef_decode_all`) replaces the reference's
+per lane (core.bits, one i32 per 512 bits — darray-class overhead, the
+batched shape of elias_fano.hpp:141-145's darray1). The full-list sweep (`ef_decode_all`) replaces the reference's
 word-buffered select_enumerator (elias_fano.hpp:210-261) with one dense
 cumsum/scatter over the high bitvector — every element of every lane decoded
 in a single fused XLA program. Random-access `ef_select` vectorizes over
@@ -113,7 +113,7 @@ def batch_ef_lists(lists: Sequence[EFList]) -> EliasFanoBatch:
 # low-words rows at or under this width read their three-word window by a
 # dense in-row compare+reduce instead of three minor-dim element gathers —
 # the graph-adjacency shape (K<=64 neighbors, l<=16 -> W<=32 words) sits
-# under it, and XLA element gathers serialize on TPU (same trade as the
+# under it, and dense forms avoid per-element gathers (same trade as the
 # count-select form below and the WT superblock row windows)
 _EF_DENSE_LOW_WORDS = 32
 
@@ -173,7 +173,7 @@ def ef_select(ef: EliasFanoBatch, lane: jax.Array, k: jax.Array) -> jax.Array:
 # Here rank is a fixed-depth vectorized binary search over ef_select (the
 # sequence is sorted, so rank(pos) == lower_bound(ids, pos)); every query in
 # the batch takes the same 35-step path, each step a dense select. Identical
-# outputs, TPU-shaped control flow.
+# outputs, batch-shaped control flow.
 # ---------------------------------------------------------------------------
 
 _RANK_STEPS = 35  # ceil(log2(2^34)) — covers any m the u32-word layout can hold
@@ -241,9 +241,7 @@ def ef_decode_all(ef: EliasFanoBatch, n_max: int) -> jax.Array:
 
       - **count-select** (small P*n_max — the in-traversal graph fetch):
         position of the (k+1)-th set bit = #positions whose inclusive
-        set-bit count <= k, a dense compare+reduce with no scatter (XLA
-        scatters serialize on TPU; this form cut the EF graph-traversal
-        fetch to ROC-provider cost);
+        set-bit count <= k, a dense compare+reduce with no scatter;
       - **scatter-select** (large shapes — invlist full decodes): cumsum
         ranks then scatter set-bit positions to their rank slots.
     """

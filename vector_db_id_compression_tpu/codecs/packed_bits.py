@@ -8,7 +8,7 @@ ids written LSB-first back to back; O(1) random access by bit offset.
 Host: vectorized pack (core.bits.np_pack_fixed). Device: `PackedBitsBatch`
 holds the packed words; both full-sweep decode and random access are a single
 vectorized two-word gather + shift (core.bits.get_fixed_fields) — no
-sequential structure at all, so this codec is pure memory bandwidth on TPU.
+sequential structure at all, so this codec is pure memory bandwidth.
 """
 
 from __future__ import annotations

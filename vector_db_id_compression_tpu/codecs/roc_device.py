@@ -5,7 +5,7 @@ through every element: reference codec.cpp:123-152), but embarrassingly
 parallel *across* lists. The reference parallelizes with OpenMP over lists
 (custom_invlists_impl.cpp:147); here a batch of B same-padded lists advances
 in lockstep through one `lax.scan`, so every per-step primitive is a dense
-vector op over the lane dimension — the TPU-native shape of the same
+vector op over the lane dimension — the batched shape of the same
 computation. Sharding the lane dimension over a device mesh is layered on top
 in ``parallel.mesh``.
 
@@ -18,9 +18,8 @@ oracle (core.rans) and the compiled C++ reference.
 Order statistics are dense per-step vector ops (O(n) per element):
   encode: select k-th remaining = cumsum over an aliveness mask + argmax;
   decode: rank of symbol = masked compare-and-sum over inserted symbols.
-O(n^2) per list total, but every op is a full-width VPU instruction across
-(lanes x elements); for list lengths in the thousands this beats pointer
-chasing. A hierarchical (blocked popcount) variant is the planned fast path
+O(n^2) per list total, but every op is a dense vector op across
+(lanes x elements). A hierarchical (blocked popcount) variant is the planned fast path
 for very long lists.
 
 State-array layout per batch of B lists (static shapes; pad + mask):
@@ -126,8 +125,8 @@ def _stack_or_pool_word(stack, stack_len, pool, mt_ctr, take):
 def _divmod_by_u32(head0, nmax_u32, digit_bits: int = 8):
     """Exact (head0 // nmax, head0 % nmax) for head0 < 2^64.
 
-    Digit-wise long division so every intermediate fits uint32 — native VPU
-    divides instead of XLA's emulated 64-bit division. digit_bits=16 needs
+    Digit-wise long division so every intermediate fits uint32 (32-bit
+    divides instead of a 64-bit division). digit_bits=16 needs
     nmax < 2^16 (4 steps); digit_bits=8 needs nmax < 2^24 (8 steps). Callers
     choose statically from the bucket's max list length."""
     nm = jnp.maximum(nmax_u32, 1)

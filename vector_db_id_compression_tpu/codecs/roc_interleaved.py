@@ -3,7 +3,7 @@
 The reference decodes a list strictly sequentially (the ANS state threads
 through every element: codec.cpp:140-152); a 100k-element list is a 100k-step
 chain. This framework extension splits a list into S independent streams that
-encode/decode in lockstep across VPU lanes (canonical interleaved-rANS idea,
+encode/decode in lockstep across lanes (canonical interleaved-rANS idea,
 Giesen arXiv:1402.3392, applied per-list):
 
   1. sort the ids; cut into S *contiguous chunks* of near-equal size — the

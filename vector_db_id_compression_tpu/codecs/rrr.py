@@ -203,8 +203,8 @@ def _unrank_bits(off0: jax.Array, k0: jax.Array) -> jax.Array:
 
     The binomial lookup C(BLOCK-1-i, k) fetches the step's table ROW
     (contiguous, step index is the loop counter) and selects the per-query
-    entry with a masked reduce over the 64-wide class axis — a scattered
-    [Q]-element gather per step would serialize on TPU."""
+    entry with a masked reduce over the 64-wide class axis instead of a
+    scattered [Q]-element gather per step."""
     iota64 = jnp.arange(BLOCK + 1, dtype=jnp.int32)
 
     def step(i, carry):
@@ -306,8 +306,7 @@ def rrr_select_merged(rrr: RRRPlanes, level: int, k: jax.Array,
     dt = k.dtype
     sbr = rrr.sb_rank[level]
     # dense two-level search, both polarities + before-count in one pass
-    # (the two searchsorteds were the select walk's dominant cost on TPU —
-    # see wavelet_tree.sb_select_search); count arithmetic rides k.dtype
+    # (see wavelet_tree.sb_select_search); count arithmetic rides k.dtype
     sb, before_sb = sb_select_search(sbr, k, invert, SB_BITS,
                                      with_before=True)
 

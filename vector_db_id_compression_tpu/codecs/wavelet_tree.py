@@ -21,8 +21,8 @@ device queries:
     lifts the leaf offset through select0/select1 at each level. Rank and
     select search the superblock directory (``jnp.searchsorted``), then
     resolve within the 32-word window by a dense popcount cumsum — fully
-    vectorized over (symbol, offset) query batches, the TPU replacement for
-    SDSL's pointer-walking select.
+    vectorized over (symbol, offset) query batches, the batched replacement
+    for SDSL's pointer-walking select.
 
 Levels L = ceil(log2(sigma)) with sigma = alphabet size (nlist); symbols must
 be < 2**L. Total payload: L * ntotal bits (+ index), the wavelet-tree rate the
@@ -109,8 +109,8 @@ def _window(wt: WaveletTree, level: int, sb: jax.Array) -> jax.Array:
     """Gather each query's superblock window → u32[Q, SB_WORDS].
 
     Fetched as ROWS of the [L*SB, SB_WORDS] view: a major-dim gather of
-    contiguous 128-byte rows is the fast TPU gather path, where the
-    equivalent minor-dim element gather from u32[L, W] serializes."""
+    contiguous 128-byte rows instead of per-element gathers from
+    u32[L, W]."""
     SB = wt.words.shape[1] // SB_WORDS
     rows = wt.words.reshape(wt.words.shape[0] * SB, SB_WORDS)
     return rows[level * SB + sb]
@@ -183,13 +183,11 @@ def sb_select_search(p1: jax.Array, k: jax.Array, invert: jax.Array,
 
     Equivalent to two ``searchsorted(prefix, k+1, 'left')`` calls, but as
     two dense compare+reduce passes — hyperblock level then ONE row gather
-    of the winning hyperblock's superblock window. ``searchsorted`` lowers
-    to a log2(SB)-step data-dependent gather chain on TPU; at 1M ids the
-    walk's two searchsorteds were ~89% of each select level's cost
-    (tools/profiling/profile_wt_select.py).
+    of the winning hyperblock's superblock window, in place of a
+    ``searchsorted`` (a log2(SB)-step data-dependent gather chain).
 
     All arithmetic runs in ``k.dtype`` — callers pass i32 when the plane
-    length fits (TPU i64 is emulated 2x-register arithmetic).
+    length fits (half the bytes of i64).
 
     ``with_before=True`` additionally returns the selected-polarity count
     before the winning superblock, read from the already-gathered window
@@ -327,8 +325,7 @@ def _wt_select_tables(L: int, select_merged, tables: jax.Array,
     """Bottom-up-only select walk using precomputed path tables: one row
     gather [Q, L, 3] replaces every rank of the top-down sweep, and each
     level runs ONE merged select (per-query polarity) instead of both.
-    ``dt`` is the walk dtype — i32 when the sequence length fits (TPU i64
-    arithmetic is emulated on 32-bit lanes)."""
+    ``dt`` is the walk dtype — i32 when the sequence length fits."""
     symbol = symbol.astype(dt)
     offset = offset.astype(dt)
     t = tables.astype(dt)[symbol]               # [..., L, 3] row gather

@@ -20,7 +20,8 @@ This host path is the correctness oracle; the batched device path lives in
 ``codecs.roc`` and the native C++ build-time path in ``native/``.
 
 Everything here is plain Python/numpy integer arithmetic on the host — it is
-used at index-build/serialization time and in tests, not in the TPU hot path.
+used at index-build/serialization time and in tests, not in the device hot
+path.
 """
 
 from __future__ import annotations

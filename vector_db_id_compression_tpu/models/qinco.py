@@ -2,8 +2,8 @@
 
 The reference's large-scale pipeline (search_ivf_qinco.py:185-315) loads a
 pretrained *torch* QINCo model and uses it only to decode shortlist codes for
-neural re-ranking after deferred-ID-decoding search. This module provides the
-TPU-native equivalent: an implicit neural codebook residual quantizer
+neural re-ranking after deferred-ID-decoding search. This module provides a
+JAX equivalent: an implicit neural codebook residual quantizer
 (QINCo-family: each step's codebook is conditioned on the prefix
 reconstruction through a small MLP), with
 
@@ -14,7 +14,7 @@ reconstruction through a small MLP), with
     through all quantization steps, straight-through codeword selection,
     adam) designed to shard as dp over batch x tp over the hidden dimension.
 
-Everything is dense batched matmul ([B, ksub, *] x [*, hidden]) — MXU food.
+Everything is dense batched matmul ([B, ksub, *] x [*, hidden]).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ class QincoStep(nn.Module):
     def __call__(self, x_hat: jax.Array) -> jax.Array:
         """x_hat [B, d] -> adapted codebook [B, ksub, d]."""
         # dtype pinned: x64 mode is enabled package-wide for the codec layer,
-        # but the model must stay f32 (TPU MXU path)
+        # but the model must stay f32
         base = self.param(
             "codebook", nn.initializers.normal(0.02), (self.ksub, self.d),
             jnp.float32,
@@ -121,7 +121,7 @@ class TrainState(NamedTuple):
 
 class QincoCodec:
     """Trained-QINCo vector quantizer with the surface the IVF pipeline needs
-    (the TPU-native analogue of the reference's faiss-RQ + torch-QINCo pair,
+    (the JAX analogue of the reference's faiss-RQ + torch-QINCo pair,
     search_ivf_qinco.py:185-315):
 
       - ``train(x)``: fit the model on (residual) vectors;
@@ -197,8 +197,7 @@ class QincoCodec:
 
     def encode(self, x: np.ndarray, batch: int = 16384) -> np.ndarray:
         # batch sizes the [batch, ksub, d] codebook tensor (~512 MB at the
-        # default); bigger batches amortize the per-dispatch round trip,
-        # which dominates multi-million-vector adds on remote-TPU rigs
+        # default); bigger batches amortize the per-dispatch round trip
         enc = self._jitted("encode",
                            lambda xb: self._apply(Qinco.encode, xb)[0])
         out = []

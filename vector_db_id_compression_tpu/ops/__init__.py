@@ -1,1 +1,2 @@
-"""Pallas TPU kernels for the hot codec paths."""
+"""Pallas GPU kernels for the hot codec paths, and the route that picks
+them per backend."""

@@ -2,7 +2,7 @@
 
 The reference has no distributed runtime at all — its parallelism is OpenMP
 over lists on one CPU (SURVEY.md §2.4, custom_invlists_impl.cpp:147). The
-TPU-native equivalent: the unit of parallelism is the (inverted/adjacency)
+device-mesh equivalent: the unit of parallelism is the (inverted/adjacency)
 list, sharded over a 1-D "lists" mesh axis with ``shard_map``; every lane of
 the batched codecs is independent, so encode/decode scale linearly with no
 collectives in the hot loop. Gathers of compressed state for serialization

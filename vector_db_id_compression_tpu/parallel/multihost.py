@@ -4,7 +4,7 @@ SURVEY.md §2.4 prescribes `jax.distributed.initialize` + sharded list
 processing end-to-end; the sharded programs (parallel.mesh, parallel.search)
 are process-count agnostic — under a multi-process runtime the same
 shard_map code spans all hosts, with the coarse/merge all_gathers and the
-translation psum riding ICI within a slice and DCN across slices.
+translation psum riding the interconnect (NCCL between GPUs).
 
 One process per host, standard JAX multi-process model:
 
@@ -21,11 +21,11 @@ map and assembles globals with `jax.make_array_from_process_local_data`
 shardings). Results computed after collectives are replicated, so every
 host sees the full (D, I).
 
-This environment has no second host to run against — coverage is the
-8-virtual-device CPU mesh tests (including process-local == device_put
-construction equality, tests/test_parallel.py) plus
-`__graft_entry__.dryrun_multichip`; the initialize() path is exercised in
-its single-process no-op form.
+Coverage: the 8-virtual-device CPU mesh tests (including process-local ==
+device_put construction equality, tests/test_parallel.py), a real
+two-process CPU cluster (tests/test_multiprocess.py), and
+``chip_smoke.py --chips 4``, which runs ShardedIVF over four GPUs of one
+host and compares it with the one-GPU run.
 """
 
 from __future__ import annotations
@@ -44,9 +44,9 @@ def initialize(coordinator_address: Optional[str] = None,
     """Bring up the JAX distributed runtime when launched multi-process.
 
     Arguments default from the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID — also set by TPU pod launchers);
-    with one process and no coordinator configured this is a no-op, so the
-    same driver script runs unchanged on a laptop and on a pod slice.
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID); with one process and no coordinator
+    configured this is a no-op, so the same driver script runs unchanged on
+    one machine and on a cluster.
     """
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")

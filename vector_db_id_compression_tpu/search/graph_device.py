@@ -3,8 +3,8 @@ program.
 
 The host-driven loop (search/nsg.py:search_graph) pays a host↔device round
 trip per hop: per-visit neighbor decode is exactly the reference's
-latency-critical integration point (SURVEY.md §3.3), and on a remote TPU each
-round trip costs ~35 ms. This module keeps the entire search resident:
+latency-critical integration point (SURVEY.md §3.3). This module keeps the
+entire search resident:
 
   - candidate pools, visited bitsets, and the frontier all live in device
     arrays; the loop is a `lax.while_loop` that runs until no query has an
@@ -13,7 +13,7 @@ round trip costs ~35 ms. This module keeps the entire search resident:
     arrays plus a static function `(tree, nodes i32[Q]) -> (nbrs i32[Q, K],
     counts i32[Q])`. Providers exist for the dense Graph and all three
     compressed adjacency containers — the ROC provider runs the batched ANS
-    decode chain *inside* the traversal loop, the TPU answer to the
+    decode *inside* the traversal loop, the device-resident form of the
     reference's decode-inside-get_neighbors hot path (altid_impl.cpp:153-165);
   - results match the host implementation exactly: same pool discipline,
     same (distance, id) lexicographic tie-breaking.
@@ -117,52 +117,51 @@ def ef_provider(g):
     return tree, fetch, K
 
 
-def _graph_pallas_enabled() -> bool:
-    import os
+def _kernel_fetch(dec, deg_flat, Bn: int, K: int):
+    """Neighbor fetch through the ROC decode kernel (ops.roc_pallas): the
+    decoder's prepared lane buffers ride the provider tree as ARGUMENTS (a
+    closure constant would bake them into the program). ``Bn`` nodes share
+    one chained lane (1 = RocGraph, one lane per node)."""
+    from ..ops import roc_pallas as rp
 
-    return (os.environ.get("VDBIDC_GRAPH_PALLAS", "1") == "1"
-            and jax.devices()[0].platform == "tpu")
+    tree = (dec.buf, dec.head, dec.ptr, dec.lens, dec.prec,
+            jnp.asarray(deg_flat))
+
+    def fetch(tree, nodes):
+        buf, head, ptr, lens, prec, deg = tree
+        lane = (nodes // Bn).astype(jnp.int32)
+        sub_lens = lens[:, lane]
+        emit, _ = rp.run_kernel(buf[:, lane], head[lane], ptr[lane],
+                                sub_lens, prec[:, lane], n_max=K)
+        ids = rp.to_sampling_order(emit, sub_lens)       # [Q, S, K]
+        rows = ids[jnp.arange(nodes.shape[0]), nodes % Bn]
+        return rows.astype(jnp.int32), deg[nodes]
+
+    return tree, fetch, K
+
+
+def _graph_decoder(states, degs, prec, pool, K):
+    """Validated kernel decoder for a ROC adjacency container, or None when
+    the route (ops.route) is the XLA path."""
+    from ..ops import roc_pallas as rp
+    from ..ops import route
+
+    prec = np.asarray(prec, np.int32)
+    if route.roc_decode_route(int(prec.max(initial=1))) == route.XLA:
+        return None
+    return rp.RocPallasDecoder(states, degs, prec, pool, K).checked()
 
 
 def roc_provider(g):
     """RocGraph: full ANS decode of each visited node's neighbor set, inside
     the traversal loop (the reference's decode-in-get_neighbors hot path).
-
-    On TPU the fetch runs the single-kernel Pallas decoder over the
-    gathered frontier lanes (~VPU-cycle steps) instead of the XLA scan
-    chain (~25us/step — the round-2 graph-search bottleneck); the decoder's
-    composed lane buffers ride the provider tree as ARGUMENTS (a closure
-    constant would bake them into the program). Falls back to the XLA
-    chain off-TPU / out of envelope (VDBIDC_GRAPH_PALLAS=0 forces it)."""
+    On a GPU the fetch is one decode-kernel launch over the frontier lanes;
+    elsewhere it runs the XLA scan chain (ops.route picks)."""
     K = g.K
-    if _graph_pallas_enabled():
-        from ..ops import roc_pallas as rp
-
-        prec = np.asarray(g.id_symbol_precision, np.int32)
-        if rp.RocPallasDecoder.supports(int(prec.max(initial=1)), K):
-            try:
-                dec = rp.RocPallasDecoder(
-                    g._states, g.degrees, prec, rd.default_pool(K), K)
-            except ValueError:
-                dec = None
-            if dec is not None and dec.decode()[1]:
-                tree = (dec._buf, dec._hi, dec._lo, dec._ptr0, dec._lens,
-                        dec._prec_row, jnp.asarray(g.degrees))
-                n_max_pad, capp = dec._n_max_pad, dec._capp
-
-                def fetch_pl(tree, nodes):
-                    buf, hi, lo, ptr0, lens, prec_row, deg = tree
-                    Q = nodes.shape[0]
-                    Qp = -(-Q // 128) * 128
-                    idx = (jnp.pad(nodes, (0, Qp - Q)) if Qp > Q
-                           else nodes).astype(jnp.int32)
-                    ids, _ = rp._run_decode(
-                        buf[:, idx], hi[:, idx], lo[:, idx], ptr0[:, idx],
-                        lens[:, idx], prec_row[:, idx], n_max_pad, capp,
-                        False, jnp.asarray(True))
-                    return ids[:Q, :K].astype(jnp.int32), deg[nodes]
-
-                return tree, fetch_pl, K
+    dec = _graph_decoder(g._states, g.degrees, g.id_symbol_precision,
+                         rd.default_pool(K), K)
+    if dec is not None:
+        return _kernel_fetch(dec, g.degrees, 1, K)
 
     tree = (g._states, g._prec_dev, jnp.asarray(g.degrees),
             rd.default_pool(K))
@@ -182,42 +181,12 @@ def roc_block_provider(g):
     """RocBlockGraph: chained ANS decode of each visited node's whole block,
     then select the node's slot. block x the decode work of roc_provider in
     exchange for the amortized head (the container's rate/access trade).
-
-    On TPU the whole chain runs in one Pallas kernel per fetch
-    (RocChainedPallasDecoder) — block*K steps at VPU-cycle cost, which
-    collapses the round-2 4-6x roc-block search penalty (each XLA scan
-    step cost ~25us regardless of size). XLA-chain fallback otherwise."""
+    On a GPU the whole chain is one decode-kernel launch per fetch."""
     K, Bn = g.K, g.block
-    if _graph_pallas_enabled():
-        from ..ops import roc_pallas as rp
-
-        prec_np = np.asarray(g._prec, np.int32)
-        if rp.RocPallasDecoder.supports(int(prec_np.max(initial=1)), K):
-            try:
-                dec = rp.RocChainedPallasDecoder(
-                    g._states, np.asarray(g._degs), prec_np,
-                    rd.default_pool(Bn * K), K)
-            except ValueError:
-                dec = None
-            if dec is not None and dec.decode()[1]:
-                tree = (dec._buf, dec._hi, dec._lo, dec._ptr0, dec._lens,
-                        dec._prec, jnp.asarray(g.degrees))
-                n_max_pad, capp, S = dec._n_max_pad, dec._capp, dec.S
-
-                def fetch_pl(tree, nodes):
-                    buf, hi, lo, ptr0, lens, prec, deg_flat = tree
-                    Q = nodes.shape[0]
-                    blk = (nodes // Bn).astype(jnp.int32)
-                    Qp = -(-Q // 128) * 128
-                    idx = jnp.pad(blk, (0, Qp - Q)) if Qp > Q else blk
-                    ids, _ = rp._run_decode_chained(
-                        buf[:, idx], hi[:, idx], lo[:, idx], ptr0[:, idx],
-                        lens[:, idx], prec[:, idx], n_max_pad, capp, S,
-                        False, jnp.asarray(True))
-                    rows = ids[jnp.arange(Q), nodes % Bn, :K]
-                    return rows.astype(jnp.int32), deg_flat[nodes]
-
-                return tree, fetch_pl, K
+    dec = _graph_decoder(g._states, np.asarray(g._degs), np.asarray(g._prec),
+                         rd.default_pool(Bn * K), K)
+    if dec is not None:
+        return _kernel_fetch(dec, g.degrees, Bn, K)
 
     tree = (g._states, g._prec, g._degs, jnp.asarray(g.degrees),
             rd.default_pool(Bn * K))

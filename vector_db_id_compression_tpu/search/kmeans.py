@@ -1,8 +1,8 @@
-"""Batched Lloyd k-means on the MXU.
+"""Batched Lloyd k-means on the device.
 
 Replaces the reference's use of faiss k-means for IVF training
 (search_ivf_qinco.py:44, bench scripts build "IVFxxx,Flat" factory indexes).
-Assignment is one [n, d] x [d, k] matmul per iteration (MXU), update is a
+Assignment is one [n, d] x [d, k] matmul per iteration, update is a
 segment-sum — the whole iteration is a single jitted program.
 """
 
@@ -18,7 +18,8 @@ import numpy as np
 @partial(jax.jit, static_argnums=(2,))
 def _assign_block(x: jax.Array, centroids: jax.Array, block: int = 0) -> jax.Array:
     # ||x-c||^2 = ||x||^2 - 2 x.c + ||c||^2 ; ||x||^2 constant per row
-    dots = jnp.dot(x, centroids.T, preferred_element_type=jnp.float32)
+    dots = jnp.dot(x, centroids.T, preferred_element_type=jnp.float32,
+                                   precision=jax.lax.Precision.HIGHEST)
     c2 = jnp.sum(centroids * centroids, axis=1)
     return jnp.argmin(c2[None, :] - 2.0 * dots, axis=1).astype(jnp.int32)
 

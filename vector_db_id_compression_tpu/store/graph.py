@@ -14,7 +14,7 @@ frontier's adjacency decoded as ONE lanes-in-lockstep device program, which is
 what the batched graph traversal (search.nsg) calls each expansion step. The
 reference instead decodes one node per ``get_neighbors`` call inside the
 traversal loop (altid_impl.cpp:153-165); batching the frontier is the
-TPU-native answer to that latency-critical integration point.
+device-side answer to that latency-critical integration point.
 
 Size accounting matches the reference formulas:
   compact:  N * stride bytes, stride = (K*bits+7)/8, bits from

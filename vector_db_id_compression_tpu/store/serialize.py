@@ -39,7 +39,7 @@ from .invlists import (
 )
 from .ragged import Bucket
 
-MAGIC = "vdbidc-tpu-v1"
+MAGIC = "vdbidc-v1"
 
 _KIND = {
     RocInvertedLists: "roc",
@@ -168,7 +168,7 @@ def load_invlists(path: Union[str, Path]) -> CompressedInvertedLists:
         c.id_symbol_precision = z["id_symbol_precision"]
         buckets, l2b = load_buckets()
         c._buckets = buckets
-        c._pallas = {}
+        c._kernels = {}
         if kind == "roc":
             c._list_to_bucket = l2b
         else:
